@@ -34,8 +34,8 @@ def main(out_dir, expected_dir, data_path=None):
     print(f"Matched Q column correlations: {np.round(q_corr, 3)}")
     print(f"Matched P column correlations: {np.round(p_corr, 3)}")
 
-    # Gates pinned to measured headroom (2026-08-20, 5-epoch seed-42 run,
-    # identical on CPU and the real TPU): Q matched corrs mean .8222 with
+    # Gates pinned to measured headroom (5-epoch seed-42 run on the CPU):
+    # Q matched corrs mean .8222 with
     # six of seven >= .911 (one minor component splits differently across
     # implementations); P matched corrs mean .9735, min .894.
     ok = (np.mean(q_corr) > 0.78 and np.sort(q_corr)[1] > 0.85

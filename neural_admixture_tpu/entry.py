@@ -6,12 +6,12 @@ support (``--config file.yaml``; the reference uses configargparse with a
 YAML parser) and the same argument validation (:110-132).
 
 Differences, by design:
-  * no ``mp.spawn`` / NCCL process launch -- on TPU the runtime is SPMD per
-    host: multi-chip scaling comes from jax.sharding over a device mesh
-    (see neural_admixture_tpu.parallel), with one process per host started by
-    the TPU runtime, not by us;
-  * ``--num_gpus`` is accepted for compatibility and mapped to "number of
-    devices" semantics.
+  * no ``mp.spawn`` process launch -- one process drives all the GPUs of a
+    host: multi-device scaling comes from jax.sharding over a device mesh
+    (see neural_admixture_tpu.parallel), and XLA runs the collectives over
+    NCCL; several hosts run one process each (parallel.distributed);
+  * ``--num_gpus`` keeps its reference meaning, the number of devices
+    (0 = CPU for ``infer``).
 """
 import argparse
 import logging
@@ -160,23 +160,21 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
                         "batches. Overrides --num_gpus. Default: all devices "
                         "data-parallel, moving devices to the snp axis "
                         "automatically when per-chip SNP-plane state would "
-                        "exceed the HBM budget.")
+                        "exceed the device-memory budget.")
     parser.add_argument("--sample_block", required=False, default=16,
                         type=int, help="Batch sampling granularity: draw "
                         "random runs of this many consecutive (pre-shuffled) "
                         "samples instead of single rows (1 = classic per-row "
-                        "shuffling). Default 16: with the dynamic-slice "
-                        "block gather this measures ~7% faster end-to-end "
-                        "on v5e at 1M SNPs, with demo convergence "
-                        "indistinguishable from per-row (PARITY.md, "
-                        "tools/convergence_bench.py).")
+                        "shuffling). Default 16: contiguous block gathers, "
+                        "with demo convergence indistinguishable from "
+                        "per-row (PARITY.md, tools/convergence_bench.py).")
     parser.add_argument("--stream", required=False, default="auto",
                         choices=("auto", "0", "1"),
                         help="Host-streaming (out-of-core) training: keep "
                         "the 2-bit packed genotypes in host memory and "
                         "transfer each batch per step, for datasets whose "
-                        "packed bytes exceed device HBM (e.g. 100K x 1M = "
-                        "25 GB packed vs 16 GB on one v5e). 'auto' (default) "
+                        "packed bytes exceed device memory (e.g. 500K x 1M "
+                        "= 125 GB packed vs one 80 GB GPU). 'auto' (default) "
                         "streams only when the resident estimate exceeds "
                         "capacity in a single-process run; 1/0 force. Works "
                         "on one device or a single-host mesh (batches land "
@@ -202,14 +200,14 @@ def parse_train_args(argv: List[str]) -> argparse.Namespace:
     parser.add_argument("--threads", required=False, default=1, type=int,
                         help="Number of threads to be used during execution.")
     parser.add_argument("--no_progress", action="store_true",
-                        help="Disable the epoch progress bar.")
+                        help="Disable the per-dispatch epoch progress lines.")
     parser.add_argument("--profile_dir", required=False, default=None,
                         type=str, help="Write a jax.profiler trace of the "
                         "training epochs to this directory.")
     parser.add_argument("--checkpoint_every", required=False, default=0,
                         type=int, help="Save a resumable training checkpoint "
                         "every N epochs (0 = disabled). Also arms "
-                        "preemption safety: a SIGTERM (TPU-VM maintenance / "
+                        "preemption safety: a SIGTERM (maintenance / "
                         "preemptible scheduler) saves a checkpoint at the "
                         "next epoch boundary and exits 143; restart with "
                         "--resume (single-process runs).")
@@ -267,7 +265,7 @@ def print_banner(version: str = __version__) -> None:
    | |\\  |  __/ |_| | | | (_| | |    | | | | |_| | |  | |_| |_ / . \\   | |  | |__| | | \\ \\| |____
    |_| \\_|\\___|\\__,_|_|  \\__,_|_|    \\_| |_/____/|_|  |_|_____/_/ \\_\\  |_|   \\____/|_|  \\_\\______|
 {reset}
-                                  TPU-native engine — version {version}
+                                  JAX engine — version {version}
     """
     log.info(banner)
 
@@ -328,11 +326,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     log.info(f"    Using {args.threads} threads...")
     set_seed(args.seed)
 
-    from .utils.platform import enable_compile_cache, sync_platform_from_env
-    sync_platform_from_env()
+    from .utils.platform import enable_compile_cache
     enable_compile_cache()
 
-    # Multi-host (TPU pod) bring-up is env-driven and a no-op on one host.
+    # Multi-host bring-up is env-driven and a no-op on one host.
     from .parallel.distributed import maybe_initialize_distributed
     maybe_initialize_distributed()
 

@@ -1,9 +1,9 @@
 """Sample-major 2-bit packed genotype layout.
 
-On device, the genotype matrix is kept 2-bit packed in HBM: shape
+On device, the genotype matrix is kept 2-bit packed: shape
 (N, ceil(M/4)) uint8, genotype j of a row stored at bits [2*(j%4), 2*(j%4)+1]
 of byte j//4 (little-endian within the byte, matching PLINK's intra-byte
-order). This is the TPU-native analogue of the reference's CUDA pack2bit
+order). This is the analogue of the reference's CUDA pack2bit
 residency scheme (/root/reference/neural_admixture/src/utils_c/pack2bit.cu:10-62,
 packed residency set up at /root/reference/neural_admixture/model/train.py:120-126).
 
@@ -56,9 +56,9 @@ def unpack_2bit_rows(packed: np.ndarray, M: int) -> np.ndarray:
 def pack_with_padding(G: np.ndarray, lane_multiple: int = 2048) -> Tuple[np.ndarray, int]:
     """Pack G with the SNP axis padded to a multiple of ``lane_multiple``.
 
-    The default of 2048 genotypes = 512 bytes = 128 uint32 words matches the
-    planar tile of the fused Pallas kernels (ops.pack.PLANAR_TILE), keeping
-    every downstream block shape lane-aligned. Returns (packed, m_padded).
+    The default of 2048 genotypes = 512 bytes = 128 uint32 words is a whole
+    number of the fused op's SNP tiles (ops.fused.TILE_SNPS) and leaves room
+    to split them over an snp mesh axis. Returns (packed, m_padded).
     """
     M = G.shape[1]
     m_padded = ((M + lane_multiple - 1) // lane_multiple) * lane_multiple

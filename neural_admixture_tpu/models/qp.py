@@ -25,6 +25,14 @@ import jax
 import jax.numpy as jnp
 
 RMSNORM_EPS = 1e-8
+# Precision of the model's own matmuls. Pinned because a GPU otherwise runs
+# f32 products in TF32 (about three decimal digits), while the reference
+# trains in f32 torch. Read at trace time.
+MATMUL_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def matmul(a, b):
+    return jnp.matmul(a, b, precision=MATMUL_PRECISION)
 
 
 def head_keys(ks: List[int]) -> List[str]:
@@ -91,23 +99,24 @@ def encode_from_xp(params: Dict, Xp: jnp.ndarray) -> Dict[str, jnp.ndarray]:
     """PCA-space input (B, D) -> {head_key: Q (B, k)}.
 
     The single definition of the RMSNorm -> shared MLP -> heads -> softmax
-    encoder, shared by the XLA forward, the fused Pallas step, and the
+    encoder, shared by the XLA forward, the fused op, and the
     sharded paths (so the math cannot drift between them). ``params`` needs
     only the "rmsnorm"/"common"/"heads" entries.
     """
     ms = jnp.mean(jnp.square(Xp), axis=-1, keepdims=True)
     h = Xp * jax.lax.rsqrt(ms + RMSNORM_EPS) * params["rmsnorm"]["weight"]
-    e = jax.nn.relu(h @ params["common"]["kernel"] + params["common"]["bias"])
+    e = jax.nn.relu(matmul(h, params["common"]["kernel"])
+                    + params["common"]["bias"])
     out = {}
     for hk, head in params["heads"].items():
-        logits = e @ head["kernel"] + head["bias"]
+        logits = matmul(e, head["kernel"]) + head["bias"]
         out[hk] = jax.nn.softmax(logits, axis=-1)
     return out
 
 
 def encode(params: Dict, X: jnp.ndarray) -> Dict[str, jnp.ndarray]:
     """X (B, M) -> {head_key: Q (B, k)} admixture proportions."""
-    return encode_from_xp(params, X @ params["V"])
+    return encode_from_xp(params, matmul(X, params["V"]))
 
 
 def forward_train(params: Dict, X: jnp.ndarray):
@@ -117,7 +126,7 @@ def forward_train(params: Dict, X: jnp.ndarray):
     (ops.loss.clamped_bce_sum) with torch-matching clamp gradients.
     """
     qs = encode(params, X)
-    recs = {hk: qs[hk] @ params["decoders"][hk] for hk in qs}
+    recs = {hk: matmul(qs[hk], params["decoders"][hk]) for hk in qs}
     return recs, qs
 
 

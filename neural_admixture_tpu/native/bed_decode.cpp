@@ -1,11 +1,11 @@
 // Native host-side genotype kernels (C++17, std::thread work pool).
 //
-// TPU-native replacement for the reference's Cython/OpenMP host kernels
+// Replacement for the reference's Cython/OpenMP host kernels
 // (/root/reference/neural_admixture/src/utils_c/utils.pyx:43-68 BED decode)
 // and the packing half of its CUDA pack2bit extension
-// (/root/reference/neural_admixture/src/utils_c/pack2bit.cu:10-36): on TPU
-// the packed buffer is produced on the host and shipped to HBM once, and
-// unpacking happens inside the XLA/Pallas compute graph.
+// (/root/reference/neural_admixture/src/utils_c/pack2bit.cu:10-36): here
+// the packed buffer is produced on the host and shipped to the device once,
+// and unpacking happens inside the XLA/Pallas compute graph.
 //
 // Parallelism is a plain std::thread + atomic work-stealing chunk pool
 // rather than OpenMP: identical throughput for these memory-bound loops,

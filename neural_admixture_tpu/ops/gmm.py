@@ -1,6 +1,6 @@
 """Gaussian-mixture initialization in PCA space, in pure JAX.
 
-TPU-native replacement for the reference's sklearn GaussianMixture init
+On-device replacement for the reference's sklearn GaussianMixture init
 (/root/reference/neural_admixture/model/train.py:61-67):
 GaussianMixture(n_components=K, n_init=5, init_params='k-means++', tol=1e-4,
 covariance_type='full', max_iter=100, random_state=seed).

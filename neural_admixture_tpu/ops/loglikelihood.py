@@ -12,7 +12,7 @@ Unlike the training loss, missing genotypes ARE masked here.
 
 ``loglikelihood`` is the host (NumPy, float64, blocked) implementation used
 for the end-of-run report; ``loglikelihood_device`` is a jittable float32
-version with per-block compensation, usable on TPU for large matrices.
+version with per-block compensation, usable on the GPU for large matrices.
 """
 import jax
 import jax.numpy as jnp
@@ -100,6 +100,8 @@ def loglikelihood_packed(packed, M: int, P, Q, eps: float = _EPS,
     total = 0.0
     for i in range(0, N, block):
         G_blk = unpack_2bit_rows(np.asarray(packed[i:i + block]), M)
+        # The NumPy fallback holds several float64 (rows, M) temporaries:
+        # keep its row blocks near 32M genotypes.
         total += loglikelihood(G_blk, P, Q[i:i + block], P.shape[1], eps=eps,
-                               block=block)
+                               block=max(1, (1 << 25) // max(M, 1)))
     return total

@@ -2,13 +2,12 @@
 
 The resident genotype matrix is (N, W) uint8 with 4 genotypes per byte
 (see neural_admixture_tpu.io.packed). These ops expand a packed batch to
-dosage space on the fly inside the jitted train step, so the uint8 N x M
-matrix never lives in HBM -- the TPU-native counterpart of the reference's
-``unpack2bit_gpu_to_gpu`` CUDA kernel (/root/reference/neural_admixture/src/
-utils_c/pack2bit.cu:38-62) which re-materializes uint8 batches each step.
-
-XLA fuses the shifts/masks into the consumers; a Pallas fused
-unpack->matmul->BCE kernel lives in ops.fused (used on the hot path).
+dosage space on the fly inside the jitted train step of the XLA path, so the
+uint8 N x M matrix never lives on the device -- the counterpart of the
+reference's ``unpack2bit_gpu_to_gpu`` CUDA kernel (/root/reference/
+neural_admixture/src/utils_c/pack2bit.cu:38-62), which re-materializes
+uint8 batches each step. On the GPU the fused op (ops.fused) unpacks in
+registers instead.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,101 +32,8 @@ def unpack_dosage_x(packed: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     return jnp.where(g == jnp.uint8(3), dtype(0.0), x)
 
 
-# ---------------------------------------------------------------------------
-# Planar u32 layout -- the fused-kernel-friendly SNP ordering.
-#
-# Viewing the standard 2-bit packed bytes as little-endian uint32 words, word
-# w of a 2048-SNP tile holds original SNPs [t*2048 + 16w, t*2048 + 16w + 15].
-# Unpacking bit-field b of all 128 words of a tile yields a contiguous
-# (.., 128) lane vector -- concatenating the 16 fields gives the tile's
-# genotypes in "planar" order:
-#
-#     device slot t*2048 + b*128 + w  <->  original SNP t*2048 + 16*w + b
-#
-# Since every SNP-indexed quantity (V rows, P columns, the column mask) can be
-# pre-permuted once on the host, kernels unpack with 16 shift-and-mask ops and
-# ZERO lane shuffling. All M-reductions are permutation-invariant.
-# ---------------------------------------------------------------------------
-
-PLANAR_TILE = 2048  # SNPs per planar tile = 128 u32 words
-
-
-def planar_perm(m_pad: int, tile: int = PLANAR_TILE) -> np.ndarray:
-    """perm[device_slot] = original SNP index. m_pad must be a tile multiple.
-
-    Apply as ``V_planar = V[perm]``; invert with ``inverse_perm``.
-    """
-    assert m_pad % tile == 0, (m_pad, tile)
-    words = tile // 16
-    t = np.arange(m_pad) // tile
-    s = np.arange(m_pad) % tile
-    b, w = s // words, s % words
-    return (t * tile + 16 * w + b).astype(np.int64)
-
-
-def inverse_perm(perm: np.ndarray) -> np.ndarray:
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.size)
-    return inv
-
-
 def packed_view_u32(packed: np.ndarray) -> np.ndarray:
-    """(N, W) uint8 2-bit rows -> (N, W//4) little-endian uint32 words."""
+    """(N, W) uint8 2-bit rows -> (N, W//4) little-endian uint32 words, the
+    fused op's input (ops.fused): word w holds SNPs 16w .. 16w+15."""
     assert packed.shape[-1] % 4 == 0
     return np.ascontiguousarray(packed).view("<u4")
-
-
-def packed_has_missing(packed: np.ndarray, block_rows: int = 4096) -> bool:
-    """Host-side check: does any 2-bit code equal 3 (missing)?
-
-    A byte holds a 0b11 pair iff ``b & (b >> 1) & 0b01010101`` is nonzero.
-    Blocked with early exit so biobank-scale matrices don't materialize a
-    full-size temporary. Column padding is packed as 0 and cannot alias 3.
-    Used to trace the fused kernels without the missing->0 select
-    (ops.fused._unpack_x no_missing), which is on the VPU critical path.
-    """
-    b8 = np.ascontiguousarray(packed).view(np.uint8).reshape(
-        packed.shape[0], -1)
-    for i in range(0, b8.shape[0], block_rows):
-        blk = b8[i:i + block_rows]
-        if np.any(blk & (blk >> 1) & 0x55):
-            return True
-    return False
-
-
-def unpack_genotypes_planar(u32: jnp.ndarray,
-                            tile: int = PLANAR_TILE) -> jnp.ndarray:
-    """(B, W4) uint32 -> (B, 16*W4) genotypes in planar order."""
-    words = tile // 16
-    B, W4 = u32.shape
-    u = u32.reshape(B, W4 // words, words)
-    parts = [((u >> jnp.uint32(2 * b)) & jnp.uint32(3)) for b in range(16)]
-    g = jnp.concatenate(parts, axis=-1)  # (B, nT, tile)
-    return g.reshape(B, W4 * 16).astype(jnp.uint8)
-
-
-def unpack_dosage_x_planar(u32: jnp.ndarray, dtype=jnp.float32,
-                           tile: int = PLANAR_TILE) -> jnp.ndarray:
-    """Planar-order analogue of :func:`unpack_dosage_x` (missing -> 0)."""
-    g = unpack_genotypes_planar(u32, tile)
-    x = g.astype(dtype) * dtype(0.5)
-    return jnp.where(g == jnp.uint8(3), dtype(0.0), x)
-
-
-def tiles_from_rows(u32: jnp.ndarray, tile: int = PLANAR_TILE) -> jnp.ndarray:
-    """(N, W4) uint32 rows -> TILE-MAJOR (nT, N, tile//16) uint32.
-
-    The tile-major layout makes each fused-kernel block (one planar tile x a
-    batch-row block) a single contiguous DMA; the row-major layout reads
-    512-byte strided strips, which caps HBM efficiency (see ops.fused_step).
-    Works on device (jnp) or host (np) arrays.
-    """
-    words = tile // 16
-    N, W4 = u32.shape
-    return u32.reshape(N, W4 // words, words).transpose(1, 0, 2)
-
-
-def rows_from_tiles(tiles: jnp.ndarray) -> jnp.ndarray:
-    """Inverse of :func:`tiles_from_rows`: (nT, N, words) -> (N, W4)."""
-    nT, N, words = tiles.shape
-    return tiles.transpose(1, 0, 2).reshape(N, nT * words)

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is single-node data-parallel DDP over NCCL
 (/root/reference/neural_admixture/src/utils.py:81-95, DistributedSampler in
-src/loaders.py:27). The TPU-native design replaces that with a 2-D
+src/loaders.py:27). This design replaces that with a 2-D
 ``(data, snp)`` jax.sharding.Mesh:
 
   * samples (the N axis of the packed genotype matrix and each batch) are

@@ -23,8 +23,8 @@ NCCL; here the huge M axis is genuinely sharded:
     tests/test_sharded_step.py.
 
 The per-shard compute is the same code as the single-device engine -- either
-the XLA path or the fused Pallas kernels (ops.fused), which simply see the
-local block shapes.
+the XLA path or the fused op (ops.fused), which simply sees the local block
+shapes. XLA lowers the psums to NCCL collectives on GPUs.
 """
 from functools import partial
 from typing import Dict
@@ -36,7 +36,7 @@ from jax import shard_map
 
 from ..models import qp
 from ..ops.loss import clamped_bce_sum, softmax_cross_entropy_sum
-from ..ops.pack import unpack_dosage_x, unpack_dosage_x_planar
+from ..ops.pack import unpack_dosage_x
 from .mesh import DATA_AXIS, SNP_AXIS, param_specs
 
 
@@ -71,15 +71,16 @@ def _shard_loss_local(params, xb, row_weight, col_mask, pops_batch,
     if use_pallas:
         enc = {k: params[k] for k in ("rmsnorm", "common", "heads")}
         loss, qs = fused_op(params["V"], enc, params["decoders"], xb,
-                            col_mask, row_weight)
+                            row_weight)
     else:
         X = unpack_dosage_x(xb)
-        Xp = _psum_snp(X @ params["V"])
+        Xp = _psum_snp(qp.matmul(X, params["V"]))
         qs = qp.encode_from_xp(params, Xp)
         loss = jnp.asarray(0.0, jnp.float32)
         for hk in sorted(qs):
             loss = loss + clamped_bce_sum(
-                qs[hk] @ params["decoders"][hk], X, col_mask, row_weight)
+                qp.matmul(qs[hk], params["decoders"][hk]), X, col_mask,
+                row_weight)
     if supervised:
         # Q is replicated over the snp axis; divide so the (data, snp) psum
         # counts each sample's CE exactly once.
@@ -92,28 +93,26 @@ def _shard_loss_local(params, xb, row_weight, col_mask, pops_batch,
 
 def make_sharded_loss_and_grad(mesh, params_template: Dict, supervised: bool,
                                supervised_loss_weight: float,
-                               use_pallas: bool, no_missing: bool = False,
-                               masked: bool = True,
-                               merged_loss: bool = False):
+                               use_pallas: bool, compute_loss: bool = True,
+                               interpret: bool = False):
     """Build a (params, xb, row_w, col_mask, pops_b) -> (loss, grads) function
     executed under shard_map on ``mesh``. Input/output shardings:
       xb P(data, snp); row_w/pops_b P(data); col_mask P(snp);
       params/grads per parallel.mesh.param_specs; loss replicated.
 
-    ``masked=False``: the caller proves every batch row is real (the
-    engine's full batches); the fused kernels drop the mask operands. Exact
-    per shard by the same padded-column argument as single-device (the
-    padded SNP columns all live in the last snp shard, whose local P
-    padding is 0 and stays 0).
+    On the fused path ``compute_loss=False`` skips the BCE value (see
+    ops.fused.make_fused_training_loss); padded SNP columns need no mask
+    there (they all live in the last snp shard, whose local P padding is 0
+    and stays 0).
     """
     n_snp = mesh.shape[SNP_AXIS]
     pspecs = param_specs(params_template)
     fused_op = None
     if use_pallas:
-        from ..ops.fused_step import make_fused_training_loss
+        from ..ops.fused import make_fused_training_loss
         fused_op = make_fused_training_loss(
             sorted(params_template["heads"]), snp_axis=SNP_AXIS,
-            no_missing=no_missing, masked=masked, merged_loss=merged_loss)
+            with_loss=compute_loss, interpret=interpret)
     local = partial(_shard_loss_local, supervised=supervised,
                     supervised_loss_weight=supervised_loss_weight,
                     use_pallas=use_pallas, n_snp=n_snp, fused_op=fused_op)
@@ -141,45 +140,32 @@ def make_sharded_loss_and_grad(mesh, params_template: Dict, supervised: bool,
                 lambda v: jax.lax.psum(v, (DATA_AXIS, SNP_AXIS)), grads[name])
         return loss, grads
 
-    batch_spec = (P(SNP_AXIS, DATA_AXIS, None) if use_pallas
-                  else P(DATA_AXIS, SNP_AXIS))
     return shard_map(
         per_device, mesh=mesh,
-        in_specs=(pspecs, batch_spec, P(DATA_AXIS),
+        in_specs=(pspecs, P(DATA_AXIS, SNP_AXIS), P(DATA_AXIS),
                   P(SNP_AXIS), P(DATA_AXIS)),
         out_specs=(P(), pspecs),
         check_vma=False,
     )
 
 
-def infer_q_sharded(mesh, params, data_dev, N: int, planar: bool,
-                    batch: int = 1024, no_missing: bool = False):
+def infer_q_sharded(mesh, params, data_dev, N: int, use_pallas: bool,
+                    batch: int = 1024, interpret: bool = False):
     """Full-data encoder pass with V SNP-sharded (inference needs only the
-    psum of X @ V partials; everything after is replicated). ``data_dev`` is
-    tile-major (nT, N, words) when planar, else row-major (N, W). On the
-    tile-major layout the local X @ V partial runs through the fused xv
-    Pallas kernel (no f32 X materialization)."""
-    from ..ops.pack import rows_from_tiles
-
-    tile_major = planar and data_dev.ndim == 3
-
+    psum of X @ V partials; everything after is replicated). ``data_dev``
+    holds packed rows: uint32 words on the fused path, whose local X @ V
+    partial runs through the xv kernel (no f32 X), else uint8 bytes."""
     def per_device(params, xb):
-        if tile_major:
-            from ..ops.fused_step import _xv_call
-            from ..ops.fused import pick_tb_wide
-            # Row-local kernel: the wide (<=1024) batch-tile cap, same as
-            # the single-device fused_infer_q path (CLAUDE.md tb policy).
-            Xp_loc = _xv_call(xb, params["V"], pick_tb_wide(xb.shape[1]),
-                              no_missing)
+        if use_pallas:
+            from ..ops.fused import xv
+            Xp_loc = xv(xb, params["V"], interpret=interpret)
         else:
-            X = unpack_dosage_x_planar(xb) if planar else unpack_dosage_x(xb)
-            Xp_loc = X @ params["V"]
+            Xp_loc = qp.matmul(unpack_dosage_x(xb), params["V"])
         Xp = jax.lax.psum(Xp_loc, SNP_AXIS)
         return qp.encode_from_xp(params, Xp)
 
     pspecs = param_specs(params)
-    batch_spec = (P(SNP_AXIS, DATA_AXIS, None) if tile_major
-                  else P(DATA_AXIS, SNP_AXIS))
+    batch_spec = P(DATA_AXIS, SNP_AXIS)
     fwd = jax.jit(shard_map(
         per_device, mesh=mesh,
         in_specs=(pspecs, batch_spec),
@@ -187,11 +173,12 @@ def infer_q_sharded(mesh, params, data_dev, N: int, planar: bool,
         check_vma=False,
     ))
 
+    from ..ops.fused import ROWS
     from ..train.chunked import chunked_forward
 
     d_sz = mesh.shape[DATA_AXIS]
-    # Per-device row blocks must hit the xv kernel's 8-sublane tiling.
-    q = d_sz * 8 if tile_major else d_sz
+    # Per-device row blocks must hit the fused op's row step.
+    q = d_sz * ROWS if use_pallas else d_sz
     B = max(q, (min(N, batch) // q) * q)
     # Host-resident data (the out-of-core path): land each chunk directly
     # in the batch sharding instead of single-device-then-reshard.
@@ -200,4 +187,4 @@ def infer_q_sharded(mesh, params, data_dev, N: int, planar: bool,
                    device=jax.sharding.NamedSharding(mesh, batch_spec))
            if isinstance(data_dev, np.ndarray) else None)
     return chunked_forward(lambda blk: fwd(params, blk), data_dev, N, B,
-                           sample_axis=1 if tile_major else 0, put=put)
+                           put=put)

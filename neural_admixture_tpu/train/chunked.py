@@ -13,13 +13,11 @@ import numpy as np
 
 
 def chunked_forward(fwd: Callable, data, N: int, batch: int,
-                    sample_axis: int = 0, put: Callable = None
-                    ) -> Dict[str, np.ndarray]:
+                    put: Callable = None) -> Dict[str, np.ndarray]:
     """Run ``fwd(batch_block) -> {head: (B, k)}`` over all N samples.
 
-    ``data`` may be a device array or a host numpy array whose
-    ``sample_axis`` dimension indexes samples (row-major packed rows, or
-    tile-major (nT, N, words)). Host arrays are sliced on the host so only
+    ``data`` may be a device array or a host numpy array of packed rows
+    (samples on axis 0). Host arrays are sliced on the host so only
     one batch lives on device at a time (projective inference may process
     matrices larger than device memory); ``put`` controls their placement
     (default jnp.asarray; a sharded caller passes a device_put into its
@@ -33,27 +31,12 @@ def chunked_forward(fwd: Callable, data, N: int, batch: int,
     put = put if put is not None else jnp.asarray
     chunks: Dict[str, List[np.ndarray]] = {}
     for i in range(0, N, B):
-        if on_host:
-            index = [slice(None)] * data.ndim
-            index[sample_axis] = slice(i, min(i + B, N))
-            blk_np = data[tuple(index)]
-            n_real = blk_np.shape[sample_axis]
-            if n_real < B:  # pad on host, before placement
-                pad_shape = list(blk_np.shape)
-                pad_shape[sample_axis] = B - n_real
-                blk_np = np.concatenate(
-                    [blk_np, np.zeros(pad_shape, blk_np.dtype)],
-                    axis=sample_axis)
-            blk = put(blk_np)
+        n_real = min(B, N - i)
+        pad = [(0, B - n_real)] + [(0, 0)] * (data.ndim - 1)
+        if on_host:  # pad on host, before placement
+            blk = put(np.pad(data[i:i + n_real], pad))
         else:
-            blk = jax.lax.slice_in_dim(data, i, min(i + B, N),
-                                       axis=sample_axis)
-            n_real = blk.shape[sample_axis]
-            if n_real < B:
-                pad_shape = list(blk.shape)
-                pad_shape[sample_axis] = B - n_real
-                blk = jnp.concatenate(
-                    [blk, jnp.zeros(pad_shape, blk.dtype)], axis=sample_axis)
+            blk = jnp.pad(jax.lax.slice_in_dim(data, i, i + n_real), pad)
         qs = fwd(blk)
         for hk, q in qs.items():
             # to_host: in a multi-process run the per-chunk q is sharded

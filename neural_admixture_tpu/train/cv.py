@@ -93,7 +93,7 @@ def run_cross_validation(packed: np.ndarray, N: int, M: int,
             P_init, packed_tr, V, M, n_tr,
             pops=pops[tr_idx] if pops is not None else None)
         # Project held-out rows through the trained encoder -- the same
-        # helper `infer` uses (fused packed path on TPU).
+        # helper `infer` uses (the fused xv kernel on the GPU).
         from ..infer import infer_q
         q_val = infer_q(params, packed_val, n_val, ks)
         for i, k in enumerate(ks):

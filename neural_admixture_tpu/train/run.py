@@ -91,7 +91,7 @@ def main_train(args, t0: float) -> int:
         # --mesh DxS pins the (data, snp) mesh explicitly; --num_gpus N>0
         # pins the device count, all data-parallel (reference semantics);
         # otherwise auto (all visible devices, snp axis engaged only when
-        # the SNP-plane state exceeds the per-chip HBM budget).
+        # the SNP-plane state exceeds the per-device memory budget).
         mesh_shape=_resolve_mesh_shape(args))
     if cfg.checkpoint_every or cfg.resume:
         Path(args.save_dir).mkdir(parents=True, exist_ok=True)
@@ -109,10 +109,10 @@ def main_train(args, t0: float) -> int:
         # pass parsing only its own column slice.
         packed_native = (".bed" in suffixes or ".pgen" in suffixes
                          or ".vcf" in suffixes)
-        # FIRST backend contact (is_master -> jax.process_index dials the
-        # runtime): remote TPU backends can take minutes, which otherwise
-        # looks like a silent hang -- log before touching it, and only
-        # construct the trainer (whose master flag needs the backend) after.
+        # FIRST backend contact (is_master -> jax.process_index starts the
+        # runtime; with several GPUs or hosts that takes a while) -- log
+        # before touching it, and only construct the trainer (whose master
+        # flag needs the backend) after.
         log.info("    Initializing the JAX backend...")
         n_proc = jax.process_count()
         log.info(f"    Backend '{jax.default_backend()}' with "

@@ -1,9 +1,9 @@
 """Test env: run JAX on CPU with 8 virtual devices so sharding tests can
-exercise a (data, snp) mesh without TPU hardware (SURVEY.md section 4)."""
+exercise a (data, snp) mesh without accelerators (SURVEY.md section 4)."""
 import os
 
-# Force CPU even when the ambient env selects the TPU platform: the test
-# suite must be runnable anywhere, and sharding tests need 8 virtual devices.
+# Force CPU even on a GPU machine: the test suite must be runnable anywhere,
+# and sharding tests need 8 virtual devices.
 os.environ["JAX_PLATFORMS"] = "cpu"
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
@@ -24,28 +24,5 @@ DEMO_BED = os.path.join(_REPO, "demo/data/demo_data.bed")
 DEMO_Q_EXPECTED = os.path.join(_REPO, "demo/expected/demo_run.7.Q.expected")
 DEMO_P_EXPECTED = os.path.join(_REPO, "demo/expected/demo_run.7.P.expected")
 
-
-def assert_trajectory_close(got, want, lr, rtol=5e-3, atol=5e-4,
-                            outlier_frac=0.005):
-    """Cross-PROGRAM training-trajectory comparison robust to Adam sign
-    flips.
-
-    Two different compiled programs (mesh vs single device, grouped vs
-    split kernels, ...) produce reduction-order-ulp gradient differences,
-    and Adam's normalized step maps any NEAR-ZERO gradient to +-lr
-    regardless of ulp size -- a tiny fraction of elements can
-    legitimately drift a few lr over a short run (mechanics measured in
-    PARITY round-5's supervised-coverage note; observed ~1/100s of runs
-    in the driver dryrun before it gained the same gate). Every element
-    must stay within a few-sign-flips absolute bound (10 * lr) and at
-    most ``outlier_frac`` may exceed the tight accumulation-level
-    tolerance; a real structural bug moves whole tensors by O(0.1-1),
-    far outside both."""
-    import numpy as np
-    got, want = np.asarray(got), np.asarray(want)
-    d = np.abs(got - want)
-    loose = 10 * lr
-    assert d.max() <= loose, f"max|d|={d.max():.3e} > {loose:.1e}"
-    frac = (d > (rtol * np.abs(want) + atol)).mean()
-    assert frac <= outlier_frac, \
-        f"{frac:.2%} of elements outside rtol {rtol} (max|d|={d.max():.3e})"
+from neural_admixture_tpu.utils.trajectory import (  # noqa: E402,F401
+    assert_trajectory_close)

@@ -1,8 +1,7 @@
-"""bench.py is the driver's round-metric artifact: a regression in it
-loses the headline measurement, so CI smoke-runs the real script end to
-end on tiny workloads and validates the JSON contract (one parseable
-line with the metric/value/unit keys, roofline on TPU backends only,
-multi_head skippable).
+"""bench.py is the throughput artifact: a regression in it loses the
+headline measurement, so CI smoke-runs the real script end to end on tiny
+workloads and validates the JSON contract (one parseable line with the
+metric/value/unit keys and the device it ran on, multi_head skippable).
 
 Subprocess-based: bench.py reads its NA_BENCH_* workload knobs at import
 time, so each leg gets a fresh interpreter with the env prepared.
@@ -41,21 +40,25 @@ def _run_bench(extra_env, timeout=420):
 
 
 def test_bench_json_contract_xla_path():
-    out = _run_bench({"NA_BENCH_PALLAS": "0", "NA_BENCH_NO_TORCH": "1"})
+    out = _run_bench({"NA_BENCH_NO_TORCH": "1"})
     assert out["metric"] == "train_samples_per_sec_8kSNP_K3"
     assert out["unit"] == "samples/s"
     assert out["value"] > 0
     # no torch leg and the pinned baseline targets the 1M workload ->
     # vs_baseline must be reported as absent, not fabricated
     assert out["vs_baseline"] is None
-    assert "roofline" not in out          # CPU backend: no roofline keys
+    # the result names its device; on the CPU the engine picks the XLA step
+    assert (out["platform"], out["device_count"], out["step"]) == \
+        ("cpu", 8, "xla")
+    assert out["device_kind"]
     assert "multi_head" not in out        # NA_BENCH_MULTIHEAD=0
 
 
 def test_bench_json_contract_pallas_interpret_with_baseline():
-    out = _run_bench({"NA_BENCH_PALLAS": "1",
+    out = _run_bench({"NA_BENCH_INTERPRET": "1",
                       "NA_BENCH_TORCH_STEPS": "1"})
     assert out["value"] > 0
+    assert out["step"] == "fused-interpret"
     # live torch leg ran (tiny): vs_baseline present and positive
     assert out["baseline_source"] == "live"
     assert out["vs_baseline"] > 0

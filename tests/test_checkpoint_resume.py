@@ -98,15 +98,23 @@ def test_resume_across_mesh_shapes(tmp_path):
     np.testing.assert_allclose(Ps_res[0], Ps_full[0], rtol=1e-4, atol=1e-5)
 
 
-def test_resume_rejects_different_layout(tmp_path):
-    import pytest
+def test_resume_across_step_paths(tmp_path):
+    """Both steps keep parameters in SNP order, so a checkpoint written on
+    the XLA path resumes on the fused op (interpret mode) and continues the
+    uninterrupted XLA run's trajectory."""
+    from tests.conftest import assert_trajectory_close
     G, V, P_init, packed = _data()
     N, M = G.shape
-    # checkpoint written with the XLA (row-major) layout...
-    cfg1 = _cfg(tmp_path, 2, checkpoint_every=2, use_pallas=False)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    Qs_full, Ps_full, _ = NeuralAdmixtureTrainer(
+        _cfg(tmp_path / "a", 4, use_pallas=False)).launch_training(
+        P_init.copy(), packed, V, M, N)
+    cfg1 = _cfg(tmp_path / "b", 2, checkpoint_every=2, use_pallas=False)
     NeuralAdmixtureTrainer(cfg1).launch_training(P_init.copy(), packed, V, M, N)
-    # ...must not resume under the planar/tile-major layout
-    cfg2 = _cfg(tmp_path, 4, checkpoint_every=2, resume=True, use_pallas=True)
-    with pytest.raises(ValueError, match="different device layout"):
-        NeuralAdmixtureTrainer(cfg2).launch_training(
-            P_init.copy(), packed, V, M, N)
+    cfg2 = _cfg(tmp_path / "b", 4, checkpoint_every=2, resume=True,
+                use_pallas=True, interpret=True)
+    Qs_res, Ps_res, _ = NeuralAdmixtureTrainer(cfg2).launch_training(
+        P_init.copy(), packed, V, M, N)
+    assert_trajectory_close(Qs_res[0], Qs_full[0], lr=5e-3)
+    assert_trajectory_close(Ps_res[0], Ps_full[0], lr=5e-3)

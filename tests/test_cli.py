@@ -108,7 +108,7 @@ def test_infer_missing_config_returns_error(tmp_path):
 def test_mesh_flag_reaches_the_engine(tmp_path):
     """`--mesh DxS` must activate the (data, snp) mesh from the CLI (the
     round-1 gap: SNP sharding existed but was unreachable by users). The
-    demo BED pads to m_pad=16384, so a 2-wide planar snp axis is legal."""
+    demo BED pads to m_pad=16384, so a 2-wide snp axis is legal."""
     from neural_admixture_tpu.train.run import _resolve_mesh_shape
     from neural_admixture_tpu.entry import parse_train_args
 

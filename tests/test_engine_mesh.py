@@ -1,5 +1,5 @@
-"""End-to-end engine runs on a (data, snp) mesh, including the production
-fused Pallas step (interpret mode on the virtual CPU mesh).
+"""End-to-end engine runs on a (data, snp) mesh, including the fused op
+(its kernels in the Pallas interpreter on the virtual CPU mesh).
 
 The sharded-step math is grad-exactness-tested in test_sharded_step; this
 covers what that cannot: the full engine path (epoch scan + Adam + P clamp
@@ -18,9 +18,10 @@ from neural_admixture_tpu.train.engine import (NeuralAdmixtureTrainer,
 def _run(G, V, P_init, ks, mesh_shape, use_pallas, pops=None):
     cfg = TrainConfig(epochs=2, batch_size=16, learning_rate=1e-2, seed=0,
                       hidden_size=32, ks=ks, progress=False,
-                      use_pallas=use_pallas, mesh_shape=mesh_shape)
-    # The planar layout shards whole 2048-SNP tiles: m_pad must divide by
-    # n_snp x 2048 (same quantum _pick_mesh enforces).
+                      use_pallas=use_pallas, interpret=use_pallas,
+                      mesh_shape=mesh_shape)
+    # The fused op shards whole SNP tiles: m_pad must divide by n_snp x
+    # TILE_SNPS (the quantum _pick_mesh enforces).
     packed, _ = pack_with_padding(G, lane_multiple=2048 * mesh_shape[1])
     tr = NeuralAdmixtureTrainer(cfg)
     return tr.launch_training(P_init.copy(), packed, V, G.shape[1],
@@ -45,9 +46,9 @@ def test_pallas_mesh_engine_matches_single_device(mesh_shape):
 
 
 def test_auto_mesh_policy_engages_snp_axis_under_pressure(monkeypatch):
-    """With a tiny HBM budget the auto policy must move devices to the snp
-    axis (and the run still work end-to-end); with the default budget small
-    problems stay pure-DP."""
+    """With a tiny memory budget the auto policy must move devices to the
+    snp axis (and the run still work end-to-end); with the default budget
+    small problems stay pure-DP."""
     rng = np.random.default_rng(2)
     N, M, D, ks = 17, 4000, 4, [3]
     G = rng.integers(0, 4, size=(N, M)).astype(np.uint8)
@@ -67,3 +68,17 @@ def test_auto_mesh_policy_engages_snp_axis_under_pressure(monkeypatch):
     Qs, Ps, _ = tr.launch_training(P_init.copy(), packed, V, M, N)
     assert tr._mesh_shape[1] > 1, "snp axis not engaged by the auto policy"
     assert np.all(np.isfinite(Qs[0])) and np.all(np.isfinite(Ps[0]))
+
+
+def test_auto_mesh_budget_follows_device_capacity(monkeypatch):
+    """Without NA_TPU_HBM_BUDGET_GB the auto-mesh budget is half the device
+    capacity (utils.hbm), so a smaller card engages the snp axis sooner."""
+    monkeypatch.delenv("NA_TPU_HBM_BUDGET_GB", raising=False)
+    cfg = TrainConfig(epochs=1, batch_size=800, ks=list(range(2, 11)),
+                      progress=False, use_pallas=False)
+    tr = NeuralAdmixtureTrainer(cfg)
+    m_pad = 1 << 24  # 16.8M SNPs: ~24 GiB of V/P/Adam state + batch scratch
+    monkeypatch.setenv("NA_TPU_HBM_CAPACITY_GB", "80")
+    assert tr._auto_snp_axis(n_dev=4, m_pad=m_pad, snp_quantum=512) == 1
+    monkeypatch.setenv("NA_TPU_HBM_CAPACITY_GB", "32")
+    assert tr._auto_snp_axis(n_dev=4, m_pad=m_pad, snp_quantum=512) == 2

@@ -1,8 +1,9 @@
-"""The Pallas training path must match the XLA path numerically.
+"""The fused training path must match the XLA path numerically.
 
-Runs the full engine twice on tiny data (interpret-mode Pallas on CPU) and
-compares trained Q and P. Identical RNG streams mean the only difference is
-the kernel implementation, so results should agree to float tolerance.
+Runs the full engine twice on tiny data (the fused op's kernels in the
+Pallas interpreter on CPU) and compares trained Q and P. Identical RNG
+streams mean the only difference is the kernel implementation, so results
+should agree to float tolerance.
 """
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ from neural_admixture_tpu.train.engine import NeuralAdmixtureTrainer, TrainConfi
 def _run(use_pallas, G, V, P_init, ks, pops=None):
     cfg = TrainConfig(epochs=2, batch_size=16, learning_rate=1e-2, seed=0,
                       hidden_size=32, ks=ks, progress=False,
-                      use_pallas=use_pallas)
+                      use_pallas=use_pallas, interpret=use_pallas)
     packed, _ = pack_with_padding(G)
     tr = NeuralAdmixtureTrainer(cfg)
     return tr.launch_training(P_init.copy(), packed, V, G.shape[1],
@@ -38,7 +39,6 @@ def test_pallas_and_xla_paths_agree(ks, supervised):
         np.testing.assert_allclose(qp_, qx, rtol=5e-3, atol=5e-4)
     for px, pp in zip(Ps_x, Ps_p):
         np.testing.assert_allclose(pp, px, rtol=5e-3, atol=5e-4)
-    # V comes back in original SNP order from both paths.
     np.testing.assert_allclose(np.asarray(params_p["V"]),
                                np.asarray(params_x["V"]),
                                rtol=5e-3, atol=5e-4)

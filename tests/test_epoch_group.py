@@ -33,16 +33,12 @@ def _setup(use_pallas):
     if n_rows != N:
         data = np.concatenate(
             [data, np.zeros((n_rows - N, data.shape[1]), data.dtype)], axis=0)
-    if use_pallas:
-        data = np.ascontiguousarray(pk.tiles_from_rows(data))
     V = rng.normal(size=(m_pad, 8)).astype(np.float32) * 0.1
     P0 = rng.uniform(0.2, 0.8, size=(K, m_pad)).astype(np.float32)
     params = qp.init_params(jax.random.PRNGKey(1), jnp.asarray(V),
                             jnp.asarray(P0), 32, [K])
     tx = optax.adam(1e-3, b1=0.9, b2=0.95, eps=1e-8)
     col_mask = jnp.asarray((np.arange(m_pad) < M).astype(np.float32))
-    if use_pallas:
-        col_mask = col_mask[pk.planar_perm(m_pad)]
     pops = jnp.zeros((N,), jnp.int32)
     return tx, params, jnp.asarray(data), col_mask, pops, n_rows
 
@@ -58,7 +54,8 @@ def test_grouped_epochs_bit_exact(use_pallas, mode):
     tx, params, data, col_mask, pops, n_rows = _setup(use_pallas)
     mk = lambda cl, **kw: make_epoch_fn(  # noqa: E731
         tx, N, B, False, 0.0, use_pallas=use_pallas, params_template=params,
-        compute_loss=cl, sample_block=BLK, n_rows=n_rows, **kw)
+        compute_loss=cl, sample_block=BLK, n_rows=n_rows,
+        interpret=use_pallas, **kw)
     single_fast = mk(False)
     single_logged = mk(True)
     period = E // 2 if mode == "periods" else E
@@ -79,12 +76,12 @@ def test_grouped_epochs_bit_exact(use_pallas, mode):
     if mode == "fast":
         assert float(loss2) == 0.0
     else:
-        # Later periods' losses see the amplified Pallas-path drift of the
+        # Later periods' losses see the amplified fused-path drift of the
         # params they are computed from (see check() below).
         np.testing.assert_allclose(np.asarray(loss2), np.asarray(losses1),
                                    rtol=1e-3 if use_pallas else 1e-6)
 
-    # The XLA path comes out bit-exact. On the Pallas path the ops AROUND
+    # The XLA path comes out bit-exact. On the fused path the ops AROUND
     # the kernels (encoder/Adam) fuse differently under the outer scan;
     # the last-ulp seed differences then amplify through Adam's rsqrt over
     # E epochs. The gate below still catches structural bugs (wrong key

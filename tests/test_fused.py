@@ -1,308 +1,146 @@
-"""The production fused-step Pallas kernels vs the XLA reference math
-(interpret mode on CPU). These are the exact pallas_call wrappers the
-training engine runs (ops.fused_step); the custom-VJP glue around them is
-covered end-to-end by tests/test_engine_pallas.py."""
+"""The fused Triton op (ops.fused) against the plain XLA step.
+
+The kernels run in the Pallas interpreter here; on the GPU the same
+comparison at full width is phase 4 of chip_smoke.py. The reference is
+models.qp + ops.loss (torch-matching BCE with the -100 log clamp, the
+max(rec (1 - rec), 1e-12) backward and the boundary-inclusive clamp mask).
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from neural_admixture_tpu.io.packed import pack_2bit_rows
-from neural_admixture_tpu.ops import fused_step as fs
-from neural_admixture_tpu.ops import pack as pk
-from neural_admixture_tpu.ops.fused import pick_tb
+from neural_admixture_tpu.models import qp
+from neural_admixture_tpu.ops import fused as F
 from neural_admixture_tpu.ops.loss import clamped_bce_sum
+from neural_admixture_tpu.ops.pack import packed_view_u32, unpack_dosage_x
+
+ENC = ("rmsnorm", "common", "heads")
 
 
-def _setup(B=16, M=3000, m_pad=4096, K=5, seed=0):
-    """Tile-major packed batch + planar-permuted P/col_mask, exactly as the
-    engine lays them out (train/engine.py launch_training)."""
+def _setup(B=16, M=1017, m_pad=1024, ks=(3,), missing=True, n_real=None,
+           p_range=(0.05, 0.95), seed=0):
+    """Packed batch with ragged M (m_pad - M padded SNPs) and, when
+    ``n_real < B``, zero-weight padding rows."""
     rng = np.random.default_rng(seed)
-    G = rng.integers(0, 4, size=(B, M)).astype(np.uint8)
+    G = rng.integers(0, 4 if missing else 3, size=(B, M)).astype(np.uint8)
     packed = pack_2bit_rows(G, m_pad=m_pad)
-    rows_u32 = pk.packed_view_u32(packed)
-    tiles = jnp.asarray(np.ascontiguousarray(pk.tiles_from_rows(rows_u32)))
-    perm = pk.planar_perm(m_pad)
-    Q = jnp.asarray(rng.dirichlet(np.ones(K), size=B).astype(np.float32))
-    P = jnp.asarray(rng.uniform(-0.1, 1.1, size=(K, m_pad)).astype(np.float32))
+    V = (rng.normal(size=(M, 8)) * 0.1).astype(np.float32)
+    P0 = rng.uniform(*p_range, size=(sum(ks), M)).astype(np.float32)
+    params = qp.init_params(jax.random.PRNGKey(seed), V, P0, 16, list(ks),
+                            m_pad=m_pad)
+    n_real = B if n_real is None else n_real
+    rw = jnp.asarray((np.arange(B) < n_real).astype(np.float32))
     cm = jnp.asarray((np.arange(m_pad) < M).astype(np.float32))
-    rw = jnp.asarray((rng.uniform(size=B) > 0.2).astype(np.float32))
-    return G, tiles, perm, Q, P, cm, rw, m_pad
+    return params, packed, rw, cm
 
 
-def _ref_loss_fn(G, m_pad, cm, rw):
-    x = pk.unpack_dosage_x(jnp.asarray(pack_2bit_rows(G, m_pad=m_pad)))
-
-    def ref_loss(Q, P):
-        return clamped_bce_sum(Q @ P, x, cm, rw)
-    return ref_loss, x
+def _ref_loss(params, packed, rw, cm):
+    X = unpack_dosage_x(jnp.asarray(packed))
+    recs, _ = qp.forward_train(params, X)
+    return sum(clamped_bce_sum(recs[hk], X, cm, rw) for hk in sorted(recs))
 
 
-def test_planar_unpack_is_permuted_unpack():
-    G, tiles, perm, *_, m_pad = _setup()
-    u32_rows = pk.rows_from_tiles(tiles)
-    g_planar = np.asarray(pk.unpack_genotypes_planar(u32_rows))
-    G_pad = np.zeros((G.shape[0], m_pad), np.uint8)
-    G_pad[:, :G.shape[1]] = G
-    np.testing.assert_array_equal(g_planar, G_pad[:, perm])
+def _fused_loss(params, packed, rw, with_loss=True):
+    op = F.make_fused_training_loss(sorted(params["heads"]),
+                                    with_loss=with_loss, interpret=True)
+    enc = {k: params[k] for k in ENC}
+    return op(params["V"], enc, params["decoders"],
+              jnp.asarray(packed_view_u32(packed)), rw)[0]
 
 
-def test_planar_perm_is_permutation():
-    perm = pk.planar_perm(4096)
-    assert sorted(perm.tolist()) == list(range(4096))
-    inv = pk.inverse_perm(perm)
-    np.testing.assert_array_equal(perm[inv], np.arange(4096))
+def _assert_trees_close(got, want, rtol=2e-4, atol=2e-4):
+    flat = {jax.tree_util.keystr(k): v
+            for k, v in jax.tree_util.tree_flatten_with_path(want)[0]}
+    for k, v in jax.tree_util.tree_flatten_with_path(got)[0]:
+        name = jax.tree_util.keystr(k)
+        w = np.asarray(flat[name])
+        np.testing.assert_allclose(np.asarray(v), w, rtol=rtol,
+                                   atol=atol * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
 
 
-def test_loss_and_grad_kernels_match_reference():
-    G, tiles, perm, Q, P, cm, rw, m_pad = _setup()
-    permj = jnp.asarray(perm)
-    Pp, cmp_ = P[:, permj], cm[permj]
-    cm2, rw2 = cmp_.reshape(1, -1), rw.reshape(-1, 1)
-    tb = pick_tb(Q.shape[0])
-
-    ref_loss, _ = _ref_loss_fn(G, m_pad, cm, rw)
-    l_ref, (dq_ref, dp_ref) = jax.value_and_grad(
-        ref_loss, argnums=(0, 1))(Q, P)
-
-    l_fus = fs._loss_call([Q], [Pp], tiles, cm2, rw2, tb)
-    np.testing.assert_allclose(float(l_fus), float(l_ref), rtol=2e-5)
-
-    (dq_fus,), (dp_fus,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2,
-                                          jnp.float32(1.0), tb)
-    np.testing.assert_allclose(np.asarray(dq_fus), np.asarray(dq_ref),
-                               rtol=2e-4, atol=2e-3)
-    inv = jnp.asarray(pk.inverse_perm(perm))
-    np.testing.assert_allclose(np.asarray(dp_fus[:, inv]),
-                               np.asarray(dp_ref), rtol=2e-4, atol=2e-3)
-
-    # The g scale factors into dp inside the merged kernel (dq is scaled
-    # outside, after the encoder VJP mixes in the qs cotangent).
-    (dq_g,), (dp_g,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2,
-                                      jnp.float32(2.5), tb)
-    np.testing.assert_allclose(np.asarray(dq_g), np.asarray(dq_fus),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(dp_g), 2.5 * np.asarray(dp_fus),
-                               rtol=1e-5, atol=1e-4)
+@pytest.mark.parametrize("case", [
+    dict(),                                  # one head, ragged M, missing
+    dict(n_real=11),                         # zero-weight padding rows
+    dict(missing=False),                     # no code-3 genotypes
+    dict(ks=(2, 3, 4)),                      # multi-head
+    dict(ks=tuple(range(2, 11))),            # the K=2..10 sweep
+    dict(p_range=(-0.2, 1.3)),               # raws outside [0, 1]: clamps
+    dict(B=48, M=2048, m_pad=2048, seed=3),  # several row steps, exact M
+], ids=["k3", "padded_rows", "no_missing", "multihead", "sweep", "clamped",
+        "rows48"])
+def test_step_matches_reference(case):
+    params, packed, rw, cm = _setup(**case)
+    lf, gf = jax.value_and_grad(_fused_loss)(params, packed, rw)
+    lr, gr = jax.value_and_grad(_ref_loss)(params, packed, rw, cm)
+    np.testing.assert_allclose(float(lf), float(lr), rtol=1e-5)
+    _assert_trees_close(gf, gr)
 
 
-def test_xv_and_dv_kernels_match_reference():
-    G, tiles, perm, *_, m_pad = _setup()
-    rng = np.random.default_rng(1)
-    B, D = G.shape[0], 8
-    V = jnp.asarray(rng.normal(size=(m_pad, D)).astype(np.float32) * 0.1)
-    dXp = jnp.asarray(rng.normal(size=(B, D)).astype(np.float32))
-    permj = jnp.asarray(perm)
-    tb = pick_tb(B)
-
-    x = pk.unpack_dosage_x(jnp.asarray(pack_2bit_rows(G, m_pad=m_pad)))
-    xv_fus = fs._xv_call(tiles, V[permj], tb)
-    np.testing.assert_allclose(np.asarray(xv_fus), np.asarray(x @ V),
-                               rtol=1e-5, atol=1e-5)
-
-    dv_fus = fs._dv_call(tiles, dXp, tb)
-    inv = jnp.asarray(pk.inverse_perm(perm))
-    np.testing.assert_allclose(np.asarray(dv_fus[inv, :]),
-                               np.asarray(x.T @ dXp), rtol=1e-4, atol=1e-4)
+@pytest.mark.parametrize("ks", [(3,), (2, 3)])
+def test_loss_free_op_keeps_gradients(ks):
+    """with_loss=False skips the BCE value (returns 0) and must leave every
+    gradient unchanged."""
+    params, packed, rw, _ = _setup(ks=ks, n_real=13)
+    l0, g0 = jax.value_and_grad(_fused_loss)(params, packed, rw, False)
+    l1, g1 = jax.value_and_grad(_fused_loss)(params, packed, rw, True)
+    assert float(l0) == 0.0 and float(l1) > 0
+    _assert_trees_close(g0, g1, rtol=1e-6, atol=1e-6)
 
 
-def test_multihead_kernels_share_passes():
-    """Multi-head loss / dq outputs equal the per-head single calls."""
-    G, tiles, perm, Q, P, cm, rw, m_pad = _setup(K=4)
-    permj = jnp.asarray(perm)
-    rng = np.random.default_rng(2)
-    Q2 = jnp.asarray(rng.dirichlet(np.ones(7), size=G.shape[0])
-                     .astype(np.float32))
-    P2 = jnp.asarray(rng.uniform(0.1, 0.9, (7, m_pad)).astype(np.float32))
-    Pp, P2p, cmp_ = P[:, permj], P2[:, permj], cm[permj]
-    cm2, rw2 = cmp_.reshape(1, -1), rw.reshape(-1, 1)
-    tb = pick_tb(Q.shape[0])
-
-    l_multi = fs._loss_call([Q, Q2], [Pp, P2p], tiles, cm2, rw2, tb)
-    l_a = fs._loss_call([Q], [Pp], tiles, cm2, rw2, tb)
-    l_b = fs._loss_call([Q2], [P2p], tiles, cm2, rw2, tb)
-    np.testing.assert_allclose(float(l_multi), float(l_a) + float(l_b),
-                               rtol=1e-6)
-
-    one = jnp.float32(1.0)
-    (dq_a, dq_b), (dp_a, dp_b) = fs._dq_dp_call([Q, Q2], [Pp, P2p], tiles,
-                                                cm2, rw2, one, tb)
-    (dq_a1,), (dp_a1,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2, one, tb)
-    (dq_b1,), (dp_b1,) = fs._dq_dp_call([Q2], [P2p], tiles, cm2, rw2, one, tb)
-    np.testing.assert_allclose(np.asarray(dq_a), np.asarray(dq_a1), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(dq_b), np.asarray(dq_b1), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(dp_a), np.asarray(dp_a1), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(dp_b), np.asarray(dp_b1), rtol=1e-6)
+@pytest.mark.parametrize("missing", [True, False])
+@pytest.mark.parametrize("m_pad", [512, 1536])
+def test_xv_and_dv_match_reference(missing, m_pad):
+    params, packed, _, _ = _setup(M=m_pad - 5, m_pad=m_pad, missing=missing)
+    X = unpack_dosage_x(jnp.asarray(packed))
+    u32 = jnp.asarray(packed_view_u32(packed))
+    V = params["V"]
+    np.testing.assert_allclose(np.asarray(F.xv(u32, V, interpret=True)),
+                               np.asarray(X @ V), rtol=1e-5, atol=1e-5)
+    dXp = jnp.asarray(np.random.default_rng(1).normal(size=(16, 8)),
+                      jnp.float32)
+    np.testing.assert_allclose(np.asarray(F.dv(u32, dXp, interpret=True)),
+                               np.asarray(X.T @ dXp), rtol=1e-5, atol=1e-5)
 
 
-def test_fast_recip_backward_matches_exact(monkeypatch):
-    """Pin the production (approx-reciprocal) backward branch: force it on
-    in interpret mode and compare against the exact-division gradients
-    (interpret emulation error ~1e-3; the real TPU unit is ~8e-6)."""
-    G, tiles, perm, Q, P, cm, rw, m_pad = _setup()
-    permj = jnp.asarray(perm)
-    Pp, cmp_ = P[:, permj], cm[permj]
-    cm2, rw2 = cmp_.reshape(1, -1), rw.reshape(-1, 1)
-    tb = pick_tb(Q.shape[0])
-
-    one = jnp.float32(1.0)
-    monkeypatch.setenv("NA_TPU_EXACT_DIV", "1")
-    (dq_e,), (dp_e,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2, one, tb)
-    monkeypatch.setenv("NA_TPU_EXACT_DIV", "0")
-    (dq_a,), (dp_a,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2, one, tb)
-
-    # The single approx-reciprocal draw feeds BOTH reductions; pin both.
-    np.testing.assert_allclose(np.asarray(dq_a), np.asarray(dq_e),
-                               rtol=5e-3, atol=5e-2)
-    np.testing.assert_allclose(np.asarray(dp_a), np.asarray(dp_e),
-                               rtol=5e-3, atol=5e-2)
-
-
-def test_bf16_dot_operands_match_f32(monkeypatch):
-    """Pin the production bf16-dot-operand branch (fused._use_bf16_dots):
-    force it on in interpret mode and compare against f32 operands. On
-    real TPU the two are BIT-identical (the MXU truncates f32 operands to
-    bf16 at default precision anyway -- tools/tune_bf16.py measured
-    rel err 0.0). In interpret mode CPU matmuls are exact f32, so the
-    forced cast exposes bf16 truncation itself; the loss tracks it at
-    ~1e-2 relative, but dq/dp amplify it without bound wherever raw
-    lands near the [0, 1] clamp boundary ((rec-x)/max(rec(1-rec), eps)
-    explodes and the in-range mask can flip), so the gradients are only
-    sanity-checked here -- their TPU equivalence is the measured claim."""
-    G, tiles, perm, Q, P, cm, rw, m_pad = _setup()
-    permj = jnp.asarray(perm)
-    Pp, cmp_ = P[:, permj], cm[permj]
-    cm2, rw2 = cmp_.reshape(1, -1), rw.reshape(-1, 1)
-    tb = pick_tb(Q.shape[0])
-    one = jnp.float32(1.0)
-
-    monkeypatch.setenv("NA_TPU_DOT_BF16", "0")
-    loss_f = fs._loss_call([Q], [Pp], tiles, cm2, rw2, tb)
-    (dq_f,), (dp_f,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2, one, tb)
-    monkeypatch.setenv("NA_TPU_DOT_BF16", "1")
-    loss_b = fs._loss_call([Q], [Pp], tiles, cm2, rw2, tb)
-    (dq_b,), (dp_b,) = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2, one, tb)
-
-    np.testing.assert_allclose(float(loss_b), float(loss_f), rtol=2e-2)
-    for b, f in ((dq_b, dq_f), (dp_b, dp_f)):
-        b, f = np.asarray(b), np.asarray(f)
-        assert b.shape == f.shape and np.isfinite(b).all()
-        # bulk agreement: median relative deviation stays at bf16 scale
-        rel = np.abs(b - f) / (np.abs(f) + 1e-3)
-        assert np.median(rel) < 2e-2, float(np.median(rel))
-
-
-def test_pick_tb():
-    assert pick_tb(800) == 400
-    assert pick_tb(1024) == 256
-    assert pick_tb(256) == 256
-    assert pick_tb(8) == 8
-    assert pick_tb(24) == 24
-
-
-def test_pad_batch_for_tiling_adversarial():
-    """808 = 8 x 101 has no large multiple-of-8 divisor (tb degrades to
-    8); the engine's per-row pad must find a nearby width that tiles at
-    >= cap/2, and must leave well-tiling sizes untouched (800 stays 800,
-    preserving the unmasked fast path)."""
-    from neural_admixture_tpu.ops.fused import pad_batch_for_tiling
-
-    assert pad_batch_for_tiling(800, 8) == 800
-    assert pad_batch_for_tiling(64, 8) == 64        # <= cap: one tile
-    assert pad_batch_for_tiling(1000, 8) == 1000    # tb 200 already ok
-    b = pad_batch_for_tiling(808, 8)
-    assert b >= 808 and b % 8 == 0 and pick_tb(b) >= 200
-    b3 = pad_batch_for_tiling(808, 8, n_heads=3)    # multi-head cap (400 since r5)
-    assert b3 >= 808 and pick_tb(b3, 3) >= 128
-    # alignment (e.g. 8 * d_sz on a mesh) is preserved
-    assert pad_batch_for_tiling(808, 16) % 16 == 0
-    # under a mesh the kernels tile the PER-DEVICE width B/d_sz
-    bm = pad_batch_for_tiling(808, 16, d_sz=2)
-    assert bm % 16 == 0 and pick_tb(bm // 2) >= 200
-
-
-def test_pad_batch_for_tiling_non8_cap_override(monkeypatch):
-    """An NA_TPU_TB_HEAVY override that is not a multiple of 8 must not
-    silently disable the padding search (candidates stride from the
-    largest multiple of 8 at or below the cap)."""
-    from neural_admixture_tpu.ops import fused
-    monkeypatch.setenv("NA_TPU_TB_HEAVY", "250")
-    b = fused.pad_batch_for_tiling(808, 8)
-    assert b > 808 and fused.pick_tb(b) >= 124, (b, fused.pick_tb(b))
-
-
-def test_indexed_path_rejects_oversized_sample_block():
-    """sample_block above the indexed batch-tile cap must fail with
-    guidance, not a Mosaic scoped-vmem compile error mid-step."""
-    import pytest
-
-    from neural_admixture_tpu.ops.fused_step import (INDEXED_TB_CAP,
-                                                     make_indexed_training_loss)
-    with pytest.raises(ValueError, match="sample_block"):
-        make_indexed_training_loss(["k3"], INDEXED_TB_CAP + 8)
-
-
-def test_pick_tb_warns_on_poor_tiling(caplog):
-    import logging
-
-    from neural_admixture_tpu.ops import fused
-
-    fused._TB_WARNED.clear()
-    with caplog.at_level(logging.WARNING):
-        assert pick_tb(808) == 8
-    assert any("tiles poorly" in r.message for r in caplog.records)
-    caplog.clear()
-    with caplog.at_level(logging.WARNING):
-        pick_tb(808)  # warned once per (B, cap) only
-        assert pick_tb(800) == 400
-    assert not any("tiles poorly" in r.message for r in caplog.records)
-
-
-def test_packed_has_missing():
-    G = np.array([[0, 1, 2, 0]], dtype=np.uint8)
-    assert not pk.packed_has_missing(pack_2bit_rows(G))
-    G[0, 2] = 3
-    assert pk.packed_has_missing(pack_2bit_rows(G))
-    # a lone missing genotype deep in a big matrix is found
-    G2 = np.zeros((100, 500), np.uint8)
-    assert not pk.packed_has_missing(pack_2bit_rows(G2), block_rows=16)
-    G2[77, 431] = 3
-    assert pk.packed_has_missing(pack_2bit_rows(G2), block_rows=16)
-
-
-def test_no_missing_kernels_match_default_path():
-    """no_missing=True must be bit-identical to the default kernels on data
-    without code-3 genotypes (it only removes the missing->0 select)."""
-    rng = np.random.default_rng(7)
-    B, M, m_pad, K = 16, 3000, 4096, 5
-    G = rng.integers(0, 3, size=(B, M)).astype(np.uint8)  # no missing
+@pytest.mark.parametrize("value", [0.0, 1.0, -0.25, 1.25, 0.5, 1e-7])
+def test_gradient_rule_at_clamp_boundaries(value):
+    """One-hot q rows make raw equal a chosen P entry exactly: at 0 and 1
+    the clamp passes the gradient (inclusive, like torch.clamp's backward),
+    outside it blocks it, and the 1e-12 floor bounds the division."""
+    B, m_pad, k = 16, 512, 2
+    rng = np.random.default_rng(0)
+    G = rng.integers(0, 4, size=(B, m_pad)).astype(np.uint8)
     packed = pack_2bit_rows(G, m_pad=m_pad)
-    assert not pk.packed_has_missing(packed)
-    tiles = jnp.asarray(np.ascontiguousarray(
-        pk.tiles_from_rows(pk.packed_view_u32(packed))))
-    perm = pk.planar_perm(m_pad)
-    Q = jnp.asarray(rng.dirichlet(np.ones(K), size=B).astype(np.float32))
-    P = jnp.asarray(rng.uniform(-0.1, 1.1, size=(K, m_pad)).astype(np.float32))
-    cm = jnp.asarray((np.arange(m_pad) < M).astype(np.float32))[perm]
+    q = jnp.asarray(np.eye(k, dtype=np.float32)[np.arange(B) % k])
+    P = jnp.asarray(np.where(rng.uniform(size=(k, m_pad)) < 0.5, value,
+                             rng.uniform(0.1, 0.9, size=(k, m_pad))),
+                    jnp.float32)
     rw = jnp.ones((B,), jnp.float32)
-    cm2, rw2 = cm.reshape(1, -1), rw.reshape(-1, 1)
-    Pp = P[:, jnp.asarray(perm)]
-    tb = pick_tb(B)
-    V = jnp.asarray(rng.normal(size=(m_pad, 8)).astype(np.float32))
-    dxp = jnp.asarray(rng.normal(size=(B, 8)).astype(np.float32))
+    X = unpack_dosage_x(jnp.asarray(packed))
 
-    for nm in (False, True):
-        loss = fs._loss_call([Q], [Pp], tiles, cm2, rw2, tb, no_missing=nm)
-        dqs, dps = fs._dq_dp_call([Q], [Pp], tiles, cm2, rw2,
-                                  jnp.float32(1), tb, no_missing=nm)
-        xp = fs._xv_call(tiles, V, tb, no_missing=nm)
-        dv = fs._dv_call(tiles, dxp, tb, no_missing=nm)
-        if not nm:
-            ref = (loss, dqs[0], dps[0], xp, dv)
-        else:
-            np.testing.assert_array_equal(np.asarray(loss), np.asarray(ref[0]))
-            np.testing.assert_array_equal(np.asarray(dqs[0]),
-                                          np.asarray(ref[1]))
-            np.testing.assert_array_equal(np.asarray(dps[0]),
-                                          np.asarray(ref[2]))
-            np.testing.assert_array_equal(np.asarray(xp), np.asarray(ref[3]))
-            np.testing.assert_array_equal(np.asarray(dv), np.asarray(ref[4]))
+    def ref(q, P):
+        return clamped_bce_sum(q @ P, X, jnp.ones((m_pad,)), rw)
+
+    lr = ref(q, P)
+    dq_r, dp_r = jax.grad(ref, argnums=(0, 1))(q, P)
+    loss, dqs, dps = F.heads(jnp.asarray(packed_view_u32(packed)), [q], [P],
+                             rw, with_loss=True, interpret=True)
+    np.testing.assert_allclose(float(loss), float(lr), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(dqs[0]), np.asarray(dq_r),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(dps[0]), np.asarray(dp_r),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,dtype,err", [
+    ((12, 32), jnp.uint32, ValueError),    # rows not a multiple of ROWS
+    ((16, 48), jnp.uint32, ValueError),    # SNPs not whole tiles
+    ((16, 128), jnp.uint8, TypeError),     # bytes, not words
+])
+def test_rejects_misaligned_batches(shape, dtype, err):
+    with pytest.raises(err):
+        F.xv(jnp.zeros(shape, dtype), jnp.zeros((16 * shape[1], 8)),
+             interpret=True)

@@ -18,7 +18,7 @@ Two configurations:
     differences that 6 Adam epochs amplify slightly, hence the tight
     but non-zero tolerance.
   * (2 procs x 2 devices) = a (2, 2) data x snp mesh with BLOCK sampling
-    (--sample_block 16): the TPU-pod configuration, pinning per-process
+    (--sample_block 16): the multi-host configuration, pinning per-process
     pre-shuffle (engine.shard_row_order), tile/row-block global-array
     assembly under P(data, snp), and the snp-axis psums, vs a
     single-process 4-device run emulating the same resident layout

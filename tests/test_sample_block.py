@@ -5,7 +5,7 @@ Correctness pins:
     rows, so training is invariant to the sampling order -- block mode must
     reproduce the classic per-row-shuffle run (incl. the Q row unshuffle
     and supervised pops alignment through the resident pre-shuffle);
-  * the XLA and Pallas engines must agree under block sampling (same seed
+  * the XLA and fused engines must agree under block sampling (same seed
     -> same pre-shuffle and block permutation -> identical math);
   * multi-batch block runs stay finite and produce valid simplex Q.
 """
@@ -29,7 +29,8 @@ def _mk_data(seed=3, N=37, M=500, D=4, ks=(3,), supervised=False):
 def _run(G, V, P_init, ks, blk, use_pallas, batch, epochs=2, pops=None):
     cfg = TrainConfig(epochs=epochs, batch_size=batch, learning_rate=1e-2,
                       seed=0, hidden_size=32, ks=list(ks), progress=False,
-                      use_pallas=use_pallas, sample_block=blk)
+                      use_pallas=use_pallas, interpret=use_pallas,
+                      sample_block=blk)
     packed, _ = pack_with_padding(G)
     tr = NeuralAdmixtureTrainer(cfg)
     return tr.launch_training(P_init.copy(), packed, V, G.shape[1],

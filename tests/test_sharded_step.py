@@ -19,9 +19,12 @@ def _setup(B=16, m_pad=8192, K=4, D=4, H=16, supervised=False, seed=0):
     M = m_pad - 100
     G = rng.integers(0, 4, size=(B, M)).astype(np.uint8)
     packed = jnp.asarray(pack_2bit_rows(G, m_pad=m_pad))
-    V = rng.normal(size=(m_pad, D)).astype(np.float32) * 0.1
-    P_init = rng.uniform(0.2, 0.8, size=(K, m_pad)).astype(np.float32)
-    params = qp.init_params(jax.random.PRNGKey(seed), V, P_init, H, [K])
+    V = rng.normal(size=(M, D)).astype(np.float32) * 0.1
+    P_init = rng.uniform(0.2, 0.8, size=(K, M)).astype(np.float32)
+    # Zero-padded to m_pad like the engine's parameters (the fused op relies
+    # on padded P columns being 0; the XLA step masks them).
+    params = qp.init_params(jax.random.PRNGKey(seed), V, P_init, H, [K],
+                            m_pad=m_pad)
     col_mask = jnp.asarray((np.arange(m_pad) < M).astype(np.float32))
     row_w = jnp.asarray((rng.uniform(size=B) > 0.1).astype(np.float32))
     pops = jnp.asarray(rng.integers(0, K, size=B), dtype=jnp.int32)
@@ -45,35 +48,21 @@ def _single_device_ref(params, xb, row_w, col_mask, pops, supervised, w):
     ((2, 4), False, False), ((4, 2), False, False), ((8, 1), False, False),
     ((2, 4), True, False), ((2, 4), False, True), ((2, 2), True, True)])
 def test_sharded_matches_single_device(mesh_shape, supervised, use_pallas):
-    params, packed, col_mask, row_w, pops = _setup(supervised=supervised)
+    # The fused op steps through each device's rows 16 at a time.
+    params, packed, col_mask, row_w, pops = _setup(
+        B=32 if use_pallas else 16, supervised=supervised)
     w = 7.0
     mesh = make_mesh(*mesh_shape,
                      devices=jax.devices()[:mesh_shape[0] * mesh_shape[1]])
     fn = make_sharded_loss_and_grad(mesh, params, supervised, w,
-                                    use_pallas=use_pallas)
+                                    use_pallas=use_pallas,
+                                    interpret=use_pallas)
     batch = packed
     if use_pallas:
-        from neural_admixture_tpu.ops import pack as pk
-        # Pallas path: tile-major planar batch; permute P/V/col_mask to
-        # planar order, then un-permute the gradients for comparison.
-        m_pad = col_mask.shape[0]
-        perm = pk.planar_perm(m_pad)
-        inv = jnp.asarray(pk.inverse_perm(perm))
-        permj = jnp.asarray(perm)
-        p_planar = dict(params)
-        p_planar["V"] = params["V"][permj]
-        p_planar["decoders"] = {hk: P[:, permj]
-                                for hk, P in params["decoders"].items()}
-        batch = jnp.asarray(pk.tiles_from_rows(
-            pk.packed_view_u32(np.asarray(packed))))
-        loss_s, grads_s = jax.jit(fn)(p_planar, batch, row_w,
-                                      col_mask[permj], pops)
-        grads_s = dict(grads_s)
-        grads_s["V"] = grads_s["V"][inv]
-        grads_s["decoders"] = {hk: g[:, inv]
-                               for hk, g in grads_s["decoders"].items()}
-    else:
-        loss_s, grads_s = jax.jit(fn)(params, batch, row_w, col_mask, pops)
+        # The fused op reads the same rows as uint32 words (interpret mode).
+        from neural_admixture_tpu.ops.pack import packed_view_u32
+        batch = jnp.asarray(packed_view_u32(np.asarray(packed)))
+    loss_s, grads_s = jax.jit(fn)(params, batch, row_w, col_mask, pops)
     loss_r, grads_r = _single_device_ref(params, packed, row_w, col_mask,
                                          pops, supervised, w)
 

@@ -37,16 +37,12 @@ def _setup(use_pallas, blk, seed=0, missing=False):
                 axis=0)
     else:
         n_rows = N
-    if use_pallas:
-        data = np.ascontiguousarray(pk.tiles_from_rows(data))
     V = rng.normal(size=(m_pad, 8)).astype(np.float32) * 0.1
     P0 = rng.uniform(0.2, 0.8, size=(K, m_pad)).astype(np.float32)
     params = qp.init_params(jax.random.PRNGKey(1), jnp.asarray(V),
                             jnp.asarray(P0), 32, [K])
     tx = optax.adam(1e-3, b1=0.9, b2=0.95, eps=1e-8)
     col_mask = jnp.asarray((np.arange(m_pad) < M).astype(np.float32))
-    if use_pallas:
-        col_mask = col_mask[pk.planar_perm(m_pad)]
     return tx, params, data, col_mask, n_rows
 
 
@@ -57,7 +53,7 @@ def test_stream_epoch_matches_resident(use_pallas, blk):
     tx, params, data_host, col_mask, n_rows = _setup(use_pallas, blk)
     pops_host = np.zeros((N,), np.int32)
     kw = dict(use_pallas=use_pallas, params_template=params,
-              sample_block=blk, n_rows=n_rows)
+              sample_block=blk, n_rows=n_rows, interpret=use_pallas)
     resident_logged = make_epoch_fn(tx, N, B, False, 0.0, **kw,
                                     compute_loss=True)
     resident_fast = make_epoch_fn(tx, N, B, False, 0.0, **kw,
@@ -86,7 +82,7 @@ def test_stream_epoch_matches_resident(use_pallas, blk):
             # in-scan gather -- measured BIT-exact.
             np.testing.assert_array_equal(np.asarray(k2), np.asarray(k1))
         else:
-            # Pallas path: ops around the kernels fuse differently in the
+            # Fused path: ops around the kernels fuse differently in the
             # standalone step jit vs the scan body -- last-ulp per step
             # (same class of drift as grouped dispatch, CLAUDE.md).
             np.testing.assert_allclose(np.asarray(k2), np.asarray(k1),
@@ -105,8 +101,8 @@ def _train(stream, tmp_path, monkeypatch, use_pallas=False, blk=8,
     P0 = rng.uniform(0.2, 0.8, size=(K, M)).astype(np.float32)
     cfg = TrainConfig(epochs=epochs, batch_size=batch, learning_rate=1e-3,
                       seed=11, hidden_size=32, ks=[K], progress=False,
-                      use_pallas=use_pallas, mesh_shape=(1, 1),
-                      sample_block=blk, stream=stream)
+                      use_pallas=use_pallas, interpret=use_pallas,
+                      mesh_shape=(1, 1), sample_block=blk, stream=stream)
     if resume_break is not None:
         cfg.checkpoint_every = resume_break
         cfg.checkpoint_path = str(tmp_path / f"ck_{stream}.npz")
@@ -224,12 +220,11 @@ def test_should_stream_host(monkeypatch):
 
 
 @pytest.mark.parametrize("use_pallas,mesh", [(False, (2, 2)),
-                                             (True, (2, 1))])
+                                             (True, (2, 2))])
 def test_stream_trainer_mesh(use_pallas, mesh, tmp_path, monkeypatch):
     """Streaming over a single-host mesh: batches device_put straight into
     the P(data, snp) sharding, shard_map step -- must match the resident
-    mesh run. (Pallas uses a (2,1) mesh: the 2048-genotype planar tile
-    does not divide a 2-wide snp axis at this M.)"""
+    mesh run."""
     rng = np.random.default_rng(6)
     geno = rng.integers(0, 3, size=(N, M), dtype=np.uint8)
     packed, _ = pack_with_padding(geno)
@@ -239,8 +234,8 @@ def test_stream_trainer_mesh(use_pallas, mesh, tmp_path, monkeypatch):
     def run(stream):
         cfg = TrainConfig(epochs=2, batch_size=B, learning_rate=1e-3,
                           seed=11, hidden_size=32, ks=[K], progress=False,
-                          use_pallas=use_pallas, mesh_shape=mesh,
-                          sample_block=8, stream=stream)
+                          use_pallas=use_pallas, interpret=use_pallas,
+                          mesh_shape=mesh, sample_block=8, stream=stream)
         t = NeuralAdmixtureTrainer(cfg)
         Qs, Ps, _ = t.launch_training(P0.copy(), packed, V, M, N)
         return Qs, Ps, t
@@ -263,7 +258,8 @@ def test_stratified_stream_matches_resident_epoch(use_pallas):
     assert n_rows % (blk * ep) == 0
     pops_host = np.zeros((N,), np.int32)
     kw = dict(use_pallas=use_pallas, params_template=params,
-              sample_block=blk, n_rows=n_rows, stratified=ep)
+              sample_block=blk, n_rows=n_rows, stratified=ep,
+              interpret=use_pallas)
     resident = make_epoch_fn(tx, N, B_s, False, 0.0, **kw, compute_loss=True)
     streamed = make_stream_epoch_fn(tx, N, B_s, False, 0.0, **kw,
                                     compute_loss=True)
@@ -293,8 +289,7 @@ def test_stratified_covers_every_row_once():
                                                    _stratified_plan)
     blk, ep, B_s = 8, 2, 32
     n_rows = block_geometry(N, B_s, False, None, blk)[3]
-    b_round, nb, b_rem, _ = _batch_plan(N, B_s, False, None, blk, None,
-                                        n_rows)
+    b_round, nb, b_rem = _batch_plan(N, B_s, False, None, blk, n_rows)
     idx_full, idx_rem = _stratified_plan(jax.random.PRNGKey(3), ep, blk, N,
                                          n_rows, b_round, nb, b_rem)
     units = np.concatenate([np.asarray(idx_full).ravel(),

@@ -59,8 +59,8 @@ def test_demo_structure_matches_expected(demo_run):
     Q_ref = np.genfromtxt(DEMO_Q_EXPECTED)
     P_ref = np.genfromtxt(DEMO_P_EXPECTED)
 
-    # Gates pinned to measured headroom (2026-08-20, CPU XLA path; the
-    # real-TPU run reproduces the same values): matched Q correlations
+    # Gates pinned to measured headroom (CPU XLA path; chip_smoke.py
+    # applies the same gates on the GPU): matched Q correlations
     # [.957 .988 .938 .989 .940 .033 .911] mean .8222 -- six of the seven
     # components >= 0.911; the seventh is a minor component the two
     # implementations split differently at 5 epochs. Matched P

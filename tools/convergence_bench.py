@@ -49,7 +49,7 @@ from neural_admixture_tpu.train.engine import (  # noqa: E402
     NeuralAdmixtureTrainer, TrainConfig)
 from neural_admixture_tpu.train.init import init_p_unsupervised  # noqa: E402
 from neural_admixture_tpu.utils.platform import (  # noqa: E402
-    enable_compile_cache, sync_platform_from_env)
+    enable_compile_cache)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(_REPO, "demo/data/demo_data.bed")
@@ -75,15 +75,15 @@ def synth_admixed(n: int, m: int, k: int, seed: int):
     P = rng.uniform(0.05, 0.95, size=(k, m))
     m_pad = ((m + 2047) // 2048) * 2048
     packed = np.empty((n, packed_width(m_pad)), dtype=np.uint8)
-    for i in range(0, n, 4096):
-        af = Q[i:i + 4096] @ P
+    rows = max(1, (1 << 28) // (8 * m))    # ~256 MB of float64 per block
+    for i in range(0, n, rows):
+        af = Q[i:i + rows] @ P
         G = rng.binomial(2, af).astype(np.uint8)
-        packed[i:i + 4096] = pack_2bit_rows(G, m_pad=m_pad)
+        packed[i:i + rows] = pack_2bit_rows(G, m_pad=m_pad)
     return packed, Q, P
 
 
 def main() -> int:
-    sync_platform_from_env()
     enable_compile_cache()
     total = int(os.environ.get("NA_CONV_EPOCHS", 100))
     seg = int(os.environ.get("NA_CONV_SEGMENT", 5))

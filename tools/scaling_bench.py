@@ -3,9 +3,10 @@
 
 Runs the production epoch function on 1 device and on (n_data, n_snp)
 meshes over all visible devices, and reports samples/s plus parallel
-efficiency vs the single-device run. On a real TPU slice this measures ICI
-scaling; on CPU (JAX_PLATFORMS=cpu with xla_force_host_platform_device_count)
-it validates the harness and the collective paths, not real speedups.
+efficiency vs the single-device run. On a multi-GPU host this measures
+NVLink/NCCL scaling; on CPU (JAX_PLATFORMS=cpu with
+xla_force_host_platform_device_count) it validates the harness and the
+collective paths, not real speedups.
 
 Usage: python tools/scaling_bench.py [--meshes 1x1,2x1,4x1,4x2,8x1]
 """
@@ -38,10 +39,8 @@ def main():
     from neural_admixture_tpu.train.engine import (NeuralAdmixtureTrainer,
                                                    TrainConfig, _use_pallas,
                                                    make_epoch_fn)
-    from neural_admixture_tpu.utils.platform import (enable_compile_cache,
-                                                     sync_platform_from_env)
+    from neural_admixture_tpu.utils.platform import enable_compile_cache
 
-    sync_platform_from_env()
     enable_compile_cache()
 
     n_dev = jax.device_count()
